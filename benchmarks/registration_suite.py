@@ -1,7 +1,8 @@
 #!/usr/bin/env python
-"""Registration quality/speed suite — the TPU-native equivalent of the
-reference README's CPU-ICP vs GPU-ICP vs GMM vs HGMM comparison charts
-(SURVEY.md §2.1 item 13). Prints one JSON line per (algorithm, size).
+"""Registration quality/speed suite — the JAX equivalent of the reference
+README's CPU-ICP vs GPU-ICP vs GMM vs HGMM comparison charts (SURVEY.md
+§2.1 item 13). Prints one JSON line per (algorithm, size), each naming the
+device. Exits non-zero without a GPU unless --cpu is given.
 
 Usage: python benchmarks/registration_suite.py [--n 100000] [--cpu]
 """
@@ -26,6 +27,11 @@ def main() -> None:
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
+    from hgmm.utils.runtime import device_record, enable_compile_cache, require_gpu
+
+    require_gpu(cpu_ok=args.cpu)
+    enable_compile_cache()
+    device = device_record()
     from hgmm.baselines.icp import icp
     from hgmm.data.synthetic import make_cloud, perturb
     from hgmm.eval.metrics import registration_rmse, rotation_error_deg
@@ -51,10 +57,11 @@ def main() -> None:
                 {
                     "algorithm": name,
                     "n_points": n,
-                    "fit_s": round(fit_s, 4),
-                    "register_s": round(reg_s, 4),
-                    "rmse": round(float(registration_rmse(pose, source, gt)), 6),
-                    "rot_err_deg": round(float(rotation_error_deg(pose, gt)), 4),
+                    "fit_s": fit_s,
+                    "register_s": reg_s,
+                    "rmse": float(registration_rmse(pose, source, gt)),
+                    "rot_err_deg": float(rotation_error_deg(pose, gt)),
+                    "device": device,
                     **extra,
                 }
             )

@@ -1,13 +1,14 @@
 #!/usr/bin/env python
-"""Weak-scaling benchmark of sharded EM (BASELINE.md row 2: ">= 80%
-weak-scaling efficiency at N>=2 hosts").
+"""Weak-scaling benchmark of sharded EM (BASELINE.md row 2).
 
 Runs the REAL sharded program (Mesh + shard_map + psum) on subsets of the
 available devices with a fixed per-device point count and reports
-points/sec + efficiency vs 1 device. On the CI container the devices are 8
-fake CPU devices (functional validation of the scaling path); on a pod
-slice the same script measures real ICI scaling — run under
-`jax.distributed.initialize` for multi-host.
+points/sec + efficiency vs 1 device, each line naming the device. With
+--cpu the devices are 8 fake CPU devices (functional validation of the
+scaling path only); on the GPUs of one host the same script measures real
+NVLink scaling — run under `jax.distributed.initialize` for multi-host.
+Times are wall-clock around calls that end in block_until_ready. Exits
+non-zero without a GPU unless --cpu is given.
 
 Usage: python benchmarks/scaling.py [--points-per-device 262144] [--cpu]
 """
@@ -44,8 +45,12 @@ def main() -> None:
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    import jax.numpy as jnp
 
+    from hgmm.utils.runtime import device_record, enable_compile_cache, require_gpu
+
+    require_gpu(cpu_ok=args.cpu)
+    enable_compile_cache()
+    device = device_record()
     from hgmm.data.synthetic import make_cloud
     from hgmm.models.gmm import init_params
     from hgmm.parallel import make_mesh, sharded_em_fit
@@ -56,13 +61,9 @@ def main() -> None:
 
     # Sharded-program overhead at 1 device: unsharded em_fit vs the same
     # fit through Mesh+shard_map+psum on a 1-device mesh. This is the part
-    # of the weak-scaling story measurable on a single chip (the collective
-    # machinery must be ~free before multi-host efficiency can be >=80%).
+    # of the weak-scaling story measurable on a single card (the collective
+    # machinery must be ~free before multi-device efficiency can be high).
     from hgmm.models.gmm import em_fit
-    from hgmm.utils.timing import measure_rtt
-
-    rtt = measure_rtt()
-    print(f"# null-call rtt {rtt*1e3:.1f} ms (subtracted)", file=sys.stderr)
 
     n1 = args.points_per_device
     pts1 = make_cloud(jax.random.PRNGKey(0), n1, kind="trefoil")
@@ -70,7 +71,7 @@ def main() -> None:
 
     def run_unsharded():
         p, _ = em_fit(pts1, init1, n_iters=args.iters)
-        float(p.mu[0, 0])
+        jax.block_until_ready(p)
 
     run_unsharded()
     times = []
@@ -78,7 +79,7 @@ def main() -> None:
         t0 = time.perf_counter()
         run_unsharded()
         times.append(time.perf_counter() - t0)
-    unsharded_pps = n1 / (max(float(np.median(times)) - rtt, 1e-9) / args.iters)
+    unsharded_pps = n1 / (float(np.median(times)) / args.iters)
 
     results = []
     base_pps = None
@@ -88,24 +89,24 @@ def main() -> None:
         pts = make_cloud(jax.random.PRNGKey(0), n, kind="trefoil")
         init = init_params(pts, args.k, jax.random.PRNGKey(1))
         # compile + warm
-        p, _ = sharded_em_fit(pts, init, mesh, n_iters=args.iters)
-        float(p.mu[0, 0])
+        jax.block_until_ready(sharded_em_fit(pts, init, mesh, n_iters=args.iters))
         times = []
         for _ in range(3):
             t0 = time.perf_counter()
-            p, _ = sharded_em_fit(pts, init, mesh, n_iters=args.iters)
-            float(p.mu[0, 0])
+            jax.block_until_ready(
+                sharded_em_fit(pts, init, mesh, n_iters=args.iters)
+            )
             times.append(time.perf_counter() - t0)
-        dt = max(float(np.median(times)) - rtt, 1e-9) / args.iters
+        dt = float(np.median(times)) / args.iters
         pps = n / dt
         if base_pps is None:
             base_pps = pps / s  # per-device at s=1
         eff = pps / (base_pps * s)
-        rec = {"devices": s, "points": n, "points_per_sec": round(pps),
-               "weak_scaling_efficiency": round(eff, 4)}
+        rec = {"devices": s, "points": n, "points_per_sec": pps,
+               "weak_scaling_efficiency": eff, "device": device}
         if s == 1:
-            rec["unsharded_points_per_sec"] = round(unsharded_pps)
-            rec["sharding_overhead"] = round(1.0 - pps / unsharded_pps, 4)
+            rec["unsharded_points_per_sec"] = unsharded_pps
+            rec["sharding_overhead"] = 1.0 - pps / unsharded_pps
         if jax.default_backend() == "cpu":
             # Fake devices share one physical CPU: this validates the
             # sharded program, the efficiency number is meaningless here.

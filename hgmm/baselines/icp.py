@@ -1,5 +1,5 @@
 """ICP baselines (SURVEY.md §2.1 items 4-5): the reference repo's CPU and
-GPU ICP re-expressed TPU-natively — nearest neighbors via blocked distance
+GPU ICP re-expressed in JAX — nearest neighbors via blocked distance
 matmuls (hgmm.ops.knn), rigid solve via weighted Umeyama. Used as a
 validation/comparison baseline for the GMM registration, exactly as the
 reference used them in its README benchmarks."""
@@ -42,9 +42,8 @@ def icp(
         R, t, done = carry
         pose = Pose(R, t)
         y = pose.apply(source)
-        # Dispatches to the blocked-distance Pallas kernel on TPU (the
-        # reference's GPU-ICP equivalent, SURVEY.md §2.1 item 5) and the
-        # dense twin elsewhere.
+        # Chunked distance-matmul search (the reference's GPU-ICP
+        # equivalent, SURVEY.md §2.1 item 5).
         idx, d2 = nearest_neighbor(y, target)
         matched = target[idx]
         if max_dist is not None:

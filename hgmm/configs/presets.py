@@ -44,8 +44,7 @@ CONFIG2_TREE = RegistrationPreset(
     fit_iters=12,
     # Adaptive mixed-resolution cut (arXiv 1807.02587): coarsen geometrically
     # simple parents. At 0.02 roughly the simplest quarter of an object-scale
-    # scan's nodes coarsen; measured (registration_suite, trefoil 20k) the
-    # K=512->~384 cut registers ~1.5-2x faster at sub-noise RMSE change.
+    # scan's nodes coarsen, a K=512 -> ~384 cut at sub-noise RMSE change.
     complexity_threshold=0.02,
 )
 
@@ -84,9 +83,9 @@ CONFIG4_KITTI = RegistrationPreset(
     # scenes need ~ -8 (0.0 drowned every Gaussian at LiDAR scale).
     outlier_logit=-8.0,
     # LiDAR scenes are plane-dominated: the node-complexity median on the
-    # kitti_mini fixture is ~4e-4, so 0.005 coarsens most planar patches.
-    # Measured on the fixture: 2-3x faster odometry at mm-level ATE change
-    # (0.0018 -> ~0.003 m over 4 frames).
+    # kitti_mini fixture is ~4e-4, so 0.005 coarsens most planar patches,
+    # at mm-level ATE change on the fixture (0.0018 -> ~0.003 m over 4
+    # frames).
     complexity_threshold=0.005,
 )
 

@@ -81,3 +81,40 @@ def perturb(
         idx = jax.random.permutation(k_keep, n)[:n_keep]
         out = out[idx]
     return out
+
+
+def make_loop_sequence(
+    n_frames: int,
+    scene_points: int,
+    seed: int = 0,
+    loop_frames: int | None = None,
+):
+    """LiDAR-scale synthetic drive around a loop: metric steps, a ~15 m
+    scene (an 8x-scaled trefoil of `scene_points` points), and a partial
+    (bearing-sector, ~54% of the scene) noisy view per frame.
+
+    The loop geometry is fixed: `loop_frames` frames (default n_frames)
+    go once round a loop of 0.45 m steps at 64 frames, so more loop
+    frames sample the same loop more densely. Frame k sits at angle
+    2 pi k / loop_frames; n_frames < loop_frames drives only the first
+    part of the loop. Returns (frames: list of [M_k, 3] float32 numpy
+    arrays in the sensor frame, gt: list of absolute Pose)."""
+    import numpy as np
+
+    from hgmm.models.se3 import so3_exp
+
+    loop_frames = n_frames if loop_frames is None else loop_frames
+    radius = 0.45 * 64 / (2 * np.pi)
+    scene = 8.0 * make_cloud(jax.random.PRNGKey(seed), scene_points, kind="trefoil")
+    rng = np.random.default_rng(seed)
+    gt, frames = [], []
+    for k in range(n_frames):
+        th = 2 * np.pi * k / loop_frames
+        t = jnp.array([radius * np.cos(th) - radius, radius * np.sin(th), 0.0])
+        pose = Pose(so3_exp(jnp.array([0.0, 0.0, 0.25 * np.sin(th)])), t)
+        gt.append(pose)
+        pts = np.asarray(pose.inverse().apply(scene))
+        pts = pts[np.abs(np.arctan2(pts[:, 1], pts[:, 0])) < 1.7]
+        pts = pts + 0.02 * rng.standard_normal(pts.shape).astype(np.float32)
+        frames.append(pts.astype(np.float32))
+    return frames, gt

@@ -1,9 +1,9 @@
 """Flat K-component GMM fit via EM — config 1 of BASELINE.json (bunny,
 K=64, CPU-runnable).
 
-TPU-native replacement for the reference's flat GMM-EM registration model
+Replacement for the reference's flat GMM-EM registration model
 (SURVEY.md §2.1 item 6). The EM loop is a jitted `lax.scan` whose body is
-two MXU contractions (hgmm.ops.em_stats) + a closed-form M-step — no
+one fused E-step (hgmm.ops.em_stats) + a closed-form M-step — no
 per-iteration host sync, unlike the reference's kernel-launch/memcpy loop
 (SURVEY.md §4.1).
 """
@@ -19,7 +19,6 @@ import jax.numpy as jnp
 from hgmm import ops
 from hgmm.ops.gaussians import (
     MixtureParams,
-    max_logit_params,
     mstep_update,
     pack_loglik_weights,
 )
@@ -104,23 +103,20 @@ def em_fit(
     the scene variance (so sigma_min ~ 1% of the cloud's standard deviation
     at the default). On degenerate data (points exactly on a curve/plane)
     EM otherwise collapses covariances to cov_reg, which both diverges the
-    likelihood and drives packed precisions to ~1/cov_reg — beyond the fast
-    kernels' bf16 accuracy domain (gaussians.fast_logit_margin). 0 disables
-    (use with precision="strict" for exact small-scale structure).
+    likelihood and drives packed precisions to ~1/cov_reg, where the
+    quadratic-form logits cancel catastrophically in f32. 0 disables.
     """
     if point_weights is None:
         total = jnp.asarray(points.shape[0], dtype=points.dtype)
     else:
         total = jnp.sum(point_weights)
     cov_floor = cov_floor_rel * scene_variance(points, point_weights)
-    # Feature buffers built ONCE, outside the scan (ops.Prepared: XLA's
-    # loop-invariant code motion does not hoist them — measured 3.8x on
-    # full-EM throughput at N=2M, K=512).
+    # Feature buffers built ONCE, outside the scan (ops.Prepared).
     prep = ops.prepare(points, point_weights)
 
     def step(params: MixtureParams, _):
         W = pack_loglik_weights(params)
-        stats = ops.em_stats(prep, W, shift=max_logit_params(params))
+        stats = ops.em_stats(prep, W)
         T0, T1, T2 = ops.unpack_suffstats(stats.S)
         new = mstep_update(
             T0, T1, T2, total, cov_reg=cov_reg, cov_type=cov_type,
@@ -135,7 +131,7 @@ def em_fit(
 def log_likelihood(params: MixtureParams, points: jax.Array) -> jax.Array:
     """Mean per-point log-likelihood under the mixture."""
     W = pack_loglik_weights(params)
-    stats = ops.em_stats(points, W, shift=max_logit_params(params))
+    stats = ops.em_stats(points, W)
     return stats.loglik / points.shape[0]
 
 

@@ -1,6 +1,6 @@
 """Hierarchical GMM tree — level-synchronous batched build + adaptive cut.
 
-TPU-native replacement for the reference's CUDA tree build + recursive CPU
+Replacement for the reference's CUDA tree build + recursive CPU
 traversal (SURVEY.md §2.1 item 7, §3.2; BASELINE.json:5 "recursive CPU
 GMM-tree traversal becomes level-synchronous batched tensor passes").
 Algorithm per Eckart/Kim/Kautz, arXiv 1807.02587 (PAPERS.md).
@@ -34,7 +34,6 @@ import jax.numpy as jnp
 from hgmm import ops
 from hgmm.ops.gaussians import (
     MixtureParams,
-    max_logit_params,
     mstep_update,
     pack_loglik_weights,
     sym3_eigvalsh,
@@ -119,9 +118,7 @@ def _fit_tree(
 
         def em_step(p: MixtureParams, _):
             W = pack_loglik_weights(p)
-            stats = ops.em_stats_masked(
-                prep, W, parent, branch, shift=max_logit_params(p)
-            )
+            stats = ops.em_stats_masked(prep, W, parent, branch)
             T0, T1, T2 = ops.unpack_suffstats(stats.S)
             new = mstep_update(
                 T0, T1, T2, total, cov_reg=cov_reg, cov_type=cov_type,

@@ -1,6 +1,6 @@
 """SE(3) pose solvers: weighted Horn/Umeyama and Mahalanobis Gauss-Newton.
 
-TPU-native equivalent of the reference's host-side pose solve (SURVEY.md
+Equivalent of the reference's host-side pose solve (SURVEY.md
 §2.1 item 8, §3.4; BASELINE.json:5 "SE(3) pose solve via weighted
 Horn/Mahalanobis alignment"). Both consume O(1)-sized reduced statistics
 (4x4 cross-moments / 6x6 normal equations) produced by the sharded E-step,

@@ -1,12 +1,21 @@
-"""hgmm.ops — compute kernels (Pallas TPU + pure-JAX reference twins).
+"""hgmm.ops — the E-step operations: Pallas-Triton GPU kernels
+(hgmm.ops.triton_em) and their plain-JAX twins (hgmm.ops.em_ref).
 
-Dispatch policy: on TPU backends the fused Pallas kernels run; everywhere
-else (CPU tests, fake-device meshes) the dense jnp twins in em_ref run.
-Override with set_backend("ref" | "pallas" | "auto") — the equivalence test
-suite runs both and compares (SURVEY.md §5.2).
+Dispatch rule, per operation:
+
+  em_stats, em_stats_masked, reg_stats   the Triton kernels on a GPU
+                                         backend, em_ref on the CPU
+  assign, nearest neighbour (ops.knn)    em_ref / plain XLA everywhere
+
+set_backend("ref") pins the twins everywhere; set_backend("pallas")
+demands the kernels and raises where there is no GPU (the kernels are
+never run in the interpreter outside tests); "auto" (the default) applies
+the rule above. The equivalence tests compare both (SURVEY.md §5.2).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import jax
 
@@ -28,70 +37,41 @@ from hgmm.ops.gaussians import (  # noqa: F401
 _BACKEND = "auto"
 
 
-import dataclasses as _dataclasses
-
-
-@_dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True)
 class Prepared:
-    """Backend-opaque prepared point buffers for repeated E-step calls.
+    """Points prepared once for repeated E-step calls.
 
-    Fit/registration loops call ops.prepare(points) ONCE and pass the
-    result to em_stats / em_stats_masked / assign / reg_stats per sweep:
-    the Pallas feature buffers (~96 rows x N) are loop-invariant but too
-    large for XLA's while-loop invariant code motion, so rebuilding them
-    inside a lax.scan costs real HBM traffic every sweep (measured 3.8x
-    on the full-EM throughput at N=2M, K=512 on v5e). On the ref backend
-    prepare() is free and just carries the raw arrays.
-
-    The backend is pinned at prepare() time (phiw is None <=> ref), so a
-    Prepared value stays consistent even if set_backend changes later.
+    Fit and registration loops call ops.prepare(points) ONCE, outside
+    their lax.scan, and pass the result to every em_stats /
+    em_stats_masked / assign / reg_stats call of the loop. On the kernel
+    path `feat` is the kernels' [16, N_pad] f32 feature buffer
+    (triton_em.features); on the XLA path it is None and the raw arrays
+    are used. The path is fixed at prepare() time, so a Prepared value
+    stays consistent even if set_backend changes later.
     """
 
-    pts_t: object = None  # [8, N_pad] transposed points (pallas)
-    phiw: object = None  # [16, N_pad] f32 features+weight (pallas)
-    phi48: object = None  # [32 or 80, N_pad] bf16 split features (pallas
-    # fast; row count depends on the HGMM_SLIM_PHI layout mode — see
-    # fused_em.prepare_phi)
-    coord_bound: object = None  # scalar |coord| bound (pallas fast margin)
-    points: object = None  # raw [N, 3] (ref)
-    point_weights: object = None  # raw [N] or None (ref)
-    n: int = 0  # true (unpadded) point count — static shape metadata
+    points: object = None  # raw [N, 3]
+    point_weights: object = None  # raw [N] or None
+    feat: object = None  # [16, N_pad] f32 (kernel path) or None
+    n: int = 0  # true point count (static shape metadata)
 
 
 jax.tree_util.register_dataclass(
     Prepared,
-    data_fields=(
-        "pts_t", "phiw", "phi48", "coord_bound", "points", "point_weights"
-    ),
+    data_fields=("points", "point_weights", "feat"),
     meta_fields=("n",),
 )
-
-
-def prepare(points, point_weights=None, coord_bound=None) -> Prepared:
-    """Build the per-backend prepared buffers for `points` (see Prepared).
-
-    coord_bound: optional override of the |coordinate| bound used by the
-    fast path's logit-error margin — pass a psum-maxed global bound from
-    sharded callers so every shard folds the same shift.
-    """
-    n = int(points.shape[0])
-    if _pallas_active():
-        from hgmm.ops import fused_em
-
-        pts_t = fused_em.prepare_points(points, point_weights)
-        phiw, phi48 = fused_em.prepare_phi(pts_t)
-        if coord_bound is None:
-            coord_bound = fused_em._coord_bound(pts_t)
-        return Prepared(
-            pts_t=pts_t, phiw=phiw, phi48=phi48, coord_bound=coord_bound, n=n
-        )
-    return Prepared(points=points, point_weights=point_weights, n=n)
 
 
 def set_backend(name: str) -> None:
     global _BACKEND
     if name not in ("auto", "ref", "pallas"):
         raise ValueError(f"unknown ops backend {name!r}")
+    if name == "pallas" and jax.default_backend() != "gpu":
+        raise RuntimeError(
+            "ops backend 'pallas' runs the Triton kernels and needs a GPU; "
+            f"JAX's default backend is {jax.default_backend()!r}"
+        )
     _BACKEND = name
 
 
@@ -100,122 +80,84 @@ def get_backend() -> str:
 
 
 def _pallas_active() -> bool:
+    """True when em_stats / em_stats_masked / reg_stats run the kernels."""
     if _BACKEND == "ref":
         return False
-    if _BACKEND == "pallas":
-        return True
-    return jax.default_backend() == "tpu"
+    return _BACKEND == "pallas" or jax.default_backend() == "gpu"
 
 
-def em_stats(points, W, point_weights=None, outlier_logit=None, shift=None) -> EmStats:
-    """E-step + sufficient-stat reduction. See em_ref.em_stats.
+def prepare(points, point_weights=None) -> Prepared:
+    """Build the Prepared buffers for `points` (see Prepared)."""
+    feat = None
+    if _pallas_active():
+        from hgmm.ops import triton_em
+
+        feat = triton_em.features(points, point_weights)
+    return Prepared(
+        points=points, point_weights=point_weights, feat=feat,
+        n=int(points.shape[0]),
+    )
+
+
+def _prepared(points, point_weights) -> Prepared:
+    if isinstance(points, Prepared):
+        if point_weights is not None:
+            raise ValueError("weights are baked into Prepared at prepare()")
+        return points
+    return prepare(points, point_weights)
+
+
+def em_stats(points, W, point_weights=None, outlier_logit=None) -> EmStats:
+    """E-step + sufficient-statistic reduction. See em_ref.em_stats.
 
     points: raw [N, 3] or a Prepared from ops.prepare (loops MUST use the
     latter — see Prepared). With a Prepared, point_weights must be None
-    (weights were baked in at prepare time).
+    (weights were baked in at prepare time)."""
+    prep = _prepared(points, point_weights)
+    if prep.feat is not None:
+        from hgmm.ops import triton_em
 
-    shift: optional exact global logit bound (gaussians.max_logit_params) —
-    REQUIRED for numerical robustness whenever the mixture may carry
-    collapsed covariances (iterated fits); ignored by the dense twin."""
-    if isinstance(points, Prepared):
-        if point_weights is not None:
-            raise ValueError("weights are baked into Prepared at prepare()")
-        if points.phiw is not None:
-            from hgmm.ops import fused_em
-
-            return fused_em.em_stats_prepared(
-                points.phiw, points.phi48, points.coord_bound, W,
-                outlier_logit, shift=shift,
-            )
-        return em_ref.em_stats(
-            points.points, W, points.point_weights, outlier_logit
-        )
-    if _pallas_active():
-        from hgmm.ops import fused_em
-
-        return fused_em.em_stats(points, W, point_weights, outlier_logit,
-                                 shift=shift)
-    return em_ref.em_stats(points, W, point_weights, outlier_logit)
+        return triton_em.em_stats(prep.feat, W, outlier_logit)
+    return em_ref.em_stats(prep.points, W, prep.point_weights, outlier_logit)
 
 
-def em_stats_masked(
-    points, W, parent, branch, point_weights=None, shift=None
-) -> EmStats:
+def em_stats_masked(points, W, parent, branch, point_weights=None) -> EmStats:
     """Tree-fit E-step masked to each point's parent's child block.
 
     points: raw [N, 3] or a Prepared (see em_stats)."""
-    if isinstance(points, Prepared):
-        if point_weights is not None:
-            raise ValueError("weights are baked into Prepared at prepare()")
-        if points.phiw is not None:
-            from hgmm.ops import fused_em
+    prep = _prepared(points, point_weights)
+    if prep.feat is not None:
+        from hgmm.ops import triton_em
 
-            return fused_em.em_stats_masked_prepared(
-                points.phiw, points.phi48, points.coord_bound, W, parent,
-                branch, shift=shift,
-            )
-        return em_ref.em_stats_masked(
-            points.points, W, parent, branch, points.point_weights
-        )
-    if _pallas_active():
-        from hgmm.ops import fused_em
-
-        return fused_em.em_stats_masked(
-            points, W, parent, branch, point_weights, shift=shift
-        )
-    return em_ref.em_stats_masked(points, W, parent, branch, point_weights)
+        return triton_em.em_stats(prep.feat, W, None, parent, branch)
+    return em_ref.em_stats_masked(
+        prep.points, W, parent, branch, prep.point_weights
+    )
 
 
 def assign(points, W, parent=None, branch=None):
-    """Per-point hard (argmax) component assignment, shape [N] for [N, 3]
-    input on EVERY backend (the pallas kernel's internal tile padding is
-    sliced off via Prepared.n — round-3 advisor item: the output shape
-    must not depend on the dispatch backend).
-    """
-    if isinstance(points, Prepared):
-        if points.pts_t is not None:
-            from hgmm.ops import fused_em
-
-            return fused_em.assign(points.pts_t, W, parent, branch)[: points.n]
-        return em_ref.assign(points.points, W, parent, branch)
-    if _pallas_active():
-        from hgmm.ops import fused_em
-
-        return fused_em.assign(points, W, parent, branch)
+    """Per-point hard (argmax) component assignment, shape [N]. Plain XLA
+    on every backend: it runs once per tree level, not once per sweep."""
+    points = points.points if isinstance(points, Prepared) else points
     return em_ref.assign(points, W, parent, branch)
 
 
 def reg_stats(
     x, W, mu, A6, b3, pose, point_weights=None, top_k=None, outlier_logit=None,
-    shift=None,
 ) -> RegStats:
     """Registration E-step statistics (Horn moments + GN normal equations).
 
     x: raw [N, 3] or a Prepared (registration scans use the latter so the
-    static [8, N_pad] source buffer is built once per call, not per
-    iteration). pose: (R, t) applied to x in the op (in-kernel on TPU)."""
-    if isinstance(x, Prepared):
-        if point_weights is not None:
-            raise ValueError("weights are baked into Prepared at prepare()")
-        if x.pts_t is not None:
-            from hgmm.ops import fused_em
+    source buffer is built once per call, not per iteration). pose: (R, t)
+    applied to x in the op (in-kernel on the GPU)."""
+    prep = _prepared(x, point_weights)
+    if prep.feat is not None:
+        from hgmm.ops import triton_em
 
-            return fused_em.reg_stats(
-                x.pts_t, W, mu, A6, b3, pose=pose, top_k=top_k,
-                outlier_logit=outlier_logit, shift=shift,
-                coord_bound=x.coord_bound,
-            )
-        return em_ref.reg_stats(
-            x.points, W, mu, A6, b3, pose, x.point_weights, top_k,
-            outlier_logit,
-        )
-    if _pallas_active():
-        from hgmm.ops import fused_em
-
-        return fused_em.reg_stats(
-            x, W, mu, A6, b3, pose=pose, point_weights=point_weights,
-            top_k=top_k, outlier_logit=outlier_logit, shift=shift,
+        return triton_em.reg_stats(
+            prep.feat, W, mu, A6, b3, pose, top_k, outlier_logit
         )
     return em_ref.reg_stats(
-        x, W, mu, A6, b3, pose, point_weights, top_k, outlier_logit
+        prep.points, W, mu, A6, b3, pose, prep.point_weights, top_k,
+        outlier_logit,
     )

